@@ -18,15 +18,15 @@ def main():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from panacus_tpu.parallel.ingest import init_distributed
+    from panacus_jax.parallel.ingest import init_distributed
 
     assert init_distributed(), "coordinator env vars missing"
     assert jax.process_count() == int(os.environ["JAX_NUM_PROCESSES"])
 
-    from panacus_tpu.broker import GraphBroker, GraphState, Req
-    from panacus_tpu.config import Grouping
-    from panacus_tpu.utils import CountType, Threshold
-    from panacus_tpu.ops.engine import item_mesh_of
+    from panacus_jax.broker import GraphBroker, GraphState, Req
+    from panacus_jax.config import Grouping
+    from panacus_jax.utils import CountType, Threshold
+    from panacus_jax.ops.engine import item_mesh_of
 
     gb = GraphBroker()
     res = {

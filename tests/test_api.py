@@ -2,7 +2,7 @@
 
 import numpy as np
 
-import panacus_tpu.api as pt
+import panacus_jax.api as pt
 
 
 def test_pangenome_api(chrm_gfa):

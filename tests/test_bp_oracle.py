@@ -19,11 +19,11 @@ event level (they are semantic, not implementation, choices):
 import numpy as np
 import pytest
 
-from panacus_tpu.abacus import AbacusByTotal, path_order_groups
-from panacus_tpu.gfa import GraphStorage
-from panacus_tpu.itemize import itemize_paths
-from panacus_tpu.mask import GraphMask, GraphMaskParameters
-from panacus_tpu.utils import CountType
+from panacus_jax.abacus import AbacusByTotal, path_order_groups
+from panacus_jax.gfa import GraphStorage
+from panacus_jax.itemize import itemize_paths
+from panacus_jax.mask import GraphMask, GraphMaskParameters
+from panacus_jax.utils import CountType
 
 BIG = (1 << 63) - 1
 
@@ -496,11 +496,11 @@ def test_exact_exclude_row_drops_path_from_ordering(tmp_path):
     bed = tmp_path / "exc.bed"
     # exactly the W path's (start, end) -> segment-equal -> dropped
     bed.write_text("b#1#p1\t2\t8\n")
-    from panacus_tpu.gfa import GraphStorage
-    from panacus_tpu.mask import GraphMask, GraphMaskParameters
-    from panacus_tpu.itemize import itemize_paths
-    from panacus_tpu.abacus import AbacusByTotal, path_order_groups
-    from panacus_tpu.utils import CountType
+    from panacus_jax.gfa import GraphStorage
+    from panacus_jax.mask import GraphMask, GraphMaskParameters
+    from panacus_jax.itemize import itemize_paths
+    from panacus_jax.abacus import AbacusByTotal, path_order_groups
+    from panacus_jax.utils import CountType
 
     g = GraphStorage(str(gfa), index_edges=True)
     mask = GraphMask.from_datamgr(

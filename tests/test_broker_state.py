@@ -4,7 +4,7 @@ unchanged subset was silently dropped on graph change)."""
 
 import json
 
-from panacus_tpu.cli import run_cli
+from panacus_jax.cli import run_cli
 
 
 def test_subset_survives_graph_switch(capsys, t_groups_gfa, chrm_gfa, tmp_path):

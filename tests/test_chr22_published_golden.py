@@ -13,8 +13,8 @@ import re
 
 import pytest
 
-from panacus_tpu.hist import Hist
-from panacus_tpu.utils import CountType, ThresholdContainer
+from panacus_jax.hist import Hist
+from panacus_jax.utils import CountType, ThresholdContainer
 
 from conftest import reference_file
 

@@ -4,7 +4,7 @@ import json
 
 import pytest
 
-from panacus_tpu.cli import run_cli
+from panacus_jax.cli import run_cli
 
 
 def run(capsys, args):
@@ -28,10 +28,18 @@ def test_hist_table_format(capsys, t_groups_gfa):
     assert body["6"] == "0"
 
 
-def test_growth_from_hist_tsv(capsys):
-    rc, out = run(
-        capsys, ["growth", "/root/reference/tests/test_files/t_groups.hist.tsv"]
-    )
+# node hist of the reference's t_groups.gfa (15 nodes, 6 paths): five
+# nodes in no path, ten in exactly two
+T_GROUPS_HIST_TSV = (
+    "panacus\thist\ncount\tnode\n\t\n\t\n"
+    + "".join(f"{c}\t{n}\n" for c, n in enumerate([5, 0, 10, 0, 0, 0, 0]))
+)
+
+
+def test_growth_from_hist_tsv(capsys, tmp_path):
+    hist_tsv = tmp_path / "t_groups.hist.tsv"
+    hist_tsv.write_text(T_GROUPS_HIST_TSV)
+    rc, out = run(capsys, ["growth", str(hist_tsv)])
     lines = [l for l in out.strip().split("\n") if not l.startswith("#")]
     assert lines[0] == "panacus\tgrowth"
     assert lines[1] == "count\tnode"

@@ -3,8 +3,8 @@ example in src/commands/report.rs:55-68)."""
 
 import pytest
 
-from panacus_tpu.config import AnalysisRun, Grouping, load_config
-from panacus_tpu.utils import CountType
+from panacus_jax.config import AnalysisRun, Grouping, load_config
+from panacus_jax.utils import CountType
 
 
 def test_reference_readme_example():
@@ -96,7 +96,7 @@ def test_bad_cluster_method():
 
 
 def test_task_conversion_order():
-    from panacus_tpu.pipeline import (
+    from panacus_jax.pipeline import (
         AnalysisTask,
         GraphStateChange,
         OrderChange,
@@ -121,3 +121,27 @@ def test_task_conversion_order():
     assert isinstance(tasks[2], OrderChange)
     assert tasks[2].order == "o.txt"
     assert tasks[3].analysis.get_type() == "OrderedHistgrowth"
+
+
+def test_cli_imports_without_pyyaml():
+    """Only `report` reads YAML: the CLI module loads without PyYAML."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys; import panacus_jax.cli, panacus_jax.pipeline; "
+        "print('yaml' in sys.modules)"
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120
+    )
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.strip() == "False"
+
+
+def test_yaml_config_without_pyyaml_says_so(monkeypatch):
+    import sys
+
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    with pytest.raises(SystemExit, match="PyYAML"):
+        load_config("- graph: g.gfa\n")

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from panacus_tpu.gfa import GraphStorage, PathSegment
+from panacus_jax.gfa import GraphStorage, PathSegment
 
 
 def test_t_groups_counts(t_groups_gfa):
@@ -125,7 +125,7 @@ def test_edge_lookup_without_l_lines(tmp_path, monkeypatch):
     # numpy fallback path (no native edge hash)
     import pytest
 
-    from panacus_tpu.gfa import GraphStorage
+    from panacus_jax.gfa import GraphStorage
 
     gfa = tmp_path / "noedges.gfa"
     gfa.write_text(
@@ -148,7 +148,7 @@ def test_s_spans_native_matches_fallback(t_groups_gfa, monkeypatch):
     # same S-line name/len extraction whether pt_s_spans or the numpy
     # tab-index fallback parses (lazy _tabs property materializes only
     # for the fallback)
-    from panacus_tpu import native
+    from panacus_jax import native
 
     g_native = GraphStorage(t_groups_gfa, index_edges=True)
     monkeypatch.setattr(native, "s_spans", lambda *a, **k: None)

@@ -12,7 +12,7 @@ from contextlib import redirect_stdout
 
 import pytest
 
-from panacus_tpu.cli import run_cli
+from panacus_jax.cli import run_cli
 
 from golden_grid import CASES, CHRM, GOLDEN_DIR
 

@@ -4,7 +4,7 @@ The golden-grid TSVs under tests/golden/ are generated by this codebase
 (scripts/gen_golden_grid.py) — they pin current behavior, not reference
 behavior. This test backs every *masked* grid cell with an INDEPENDENT
 recomputation on the real fixtures: a standalone pure-Python GFA parser
-(no panacus_tpu machinery) feeds the per-bp-set Oracle of
+(no panacus_jax machinery) feeds the per-bp-set Oracle of
 tests/test_bp_oracle.py, and the resulting node/bp/edge hists are diffed
 against the golden TSV values directly. Unlike the randomized oracle test,
 this also exercises name-only (whole-path) BED rows, which the random
@@ -34,7 +34,7 @@ def parse_gfa_minimal(path):
     """Standalone S/L/P parser -> the Oracle's (lens, paths, edges) model.
 
     Deliberately naive (str.split per line) and independent of
-    panacus_tpu.gfa / native: node ids must be 1..n contiguous (true for
+    panacus_jax.gfa / native: node ids must be 1..n contiguous (true for
     the chrM fixture)."""
     lens = {}
     edges = []  # canonical first-occurrence order of L lines

@@ -11,12 +11,12 @@ import math
 import numpy as np
 import pytest
 
-from panacus_tpu.hist import Hist
-from panacus_tpu.ops.growth_device import (
+from panacus_jax.hist import Hist
+from panacus_jax.ops.growth_device import (
     growth_matmul,
     growth_weight_matrix,
 )
-from panacus_tpu.utils import CountType, Threshold
+from panacus_jax.utils import CountType, Threshold
 
 
 PAIRS = [

@@ -21,8 +21,8 @@ import math
 
 import numpy as np
 
-from panacus_tpu.hist import Hist
-from panacus_tpu.utils import CountType, Threshold
+from panacus_jax.hist import Hist
+from panacus_jax.utils import CountType, Threshold
 
 
 def oracle_growth(member: np.ndarray, t_cov: Threshold, t_quo: Threshold):

@@ -6,8 +6,8 @@ import math
 import numpy as np
 import pytest
 
-from panacus_tpu.hist import Hist, choose_log2
-from panacus_tpu.utils import CountType, Threshold, ThresholdContainer
+from panacus_jax.hist import Hist, choose_log2
+from panacus_jax.utils import CountType, Threshold, ThresholdContainer
 
 
 def assert_almost_eq(a, b, eps=1e-10):

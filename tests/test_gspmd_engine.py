@@ -5,8 +5,8 @@ membership matrix is automatically sharded over all visible devices
 import jax
 import numpy as np
 
-from panacus_tpu.abacus import build_membership_host
-from panacus_tpu.ops.engine import CountingEngine
+from panacus_jax.abacus import build_membership_host
+from panacus_jax.ops.engine import CountingEngine
 
 
 def test_engine_auto_sharded_matches():

@@ -7,10 +7,10 @@ import gzip
 
 import numpy as np
 
-from panacus_tpu.gfa import GraphStorage
-from panacus_tpu.mask import GraphMask, GraphMaskParameters
-from panacus_tpu.stream import streamed_total_abaci
-from panacus_tpu.utils import CountType
+from panacus_jax.gfa import GraphStorage
+from panacus_jax.mask import GraphMask, GraphMaskParameters
+from panacus_jax.stream import streamed_total_abaci
+from panacus_jax.utils import CountType
 
 
 def hist_of(path):

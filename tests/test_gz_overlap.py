@@ -8,11 +8,11 @@ import gzip
 import numpy as np
 import pytest
 
-from panacus_tpu.gfa import GraphStorage
-from panacus_tpu.gz_pipeline import read_gz_overlapped
-from panacus_tpu.mask import GraphMask, GraphMaskParameters
-from panacus_tpu.stream import streamed_total_abaci
-from panacus_tpu.utils import CountType
+from panacus_jax.gfa import GraphStorage
+from panacus_jax.gz_pipeline import read_gz_overlapped
+from panacus_jax.mask import GraphMask, GraphMaskParameters
+from panacus_jax.stream import streamed_total_abaci
+from panacus_jax.utils import CountType
 
 
 def make_graph_text(n_nodes=60_000, n_paths=12, int_names=True, walks=True):
@@ -198,7 +198,7 @@ def test_partial_cache_falls_back_to_tokenizer(tmp_path):
 
 
 def test_overlap_disable_env(tmp_path, monkeypatch):
-    monkeypatch.setenv("PANACUS_TPU_NO_GZ_OVERLAP", "1")
+    monkeypatch.setenv("PANACUS_NO_GZ_OVERLAP", "1")
     data = make_graph_text(n_nodes=2_000, n_paths=2)
     plain, gz = write_pair(tmp_path, data, "env")
     buf, follow = read_gz_overlapped(gz)

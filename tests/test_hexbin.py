@@ -5,7 +5,7 @@ import math
 
 import numpy as np
 
-from panacus_tpu.report.hexbin import hexbin, hexbin_arrays
+from panacus_jax.report.hexbin import hexbin, hexbin_arrays
 
 
 def _dist(x1, y1, x2, y2):

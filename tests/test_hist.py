@@ -5,11 +5,11 @@ and t_groups hist (reference: tests/test_files/t_groups.hist.tsv)."""
 import numpy as np
 import pytest
 
-from panacus_tpu.abacus import AbacusByTotal, path_order_groups
-from panacus_tpu.gfa import GraphStorage
-from panacus_tpu.itemize import itemize_paths
-from panacus_tpu.mask import GraphMask, GraphMaskParameters
-from panacus_tpu.utils import CountType
+from panacus_jax.abacus import AbacusByTotal, path_order_groups
+from panacus_jax.gfa import GraphStorage
+from panacus_jax.itemize import itemize_paths
+from panacus_jax.mask import GraphMask, GraphMaskParameters
+from panacus_jax.utils import CountType
 
 CHRM_NODE_COUNTABLE = [
     3, 2, 1, 3, 1, 2, 3, 1, 2, 3, 2, 3, 2, 1, 3, 1, 3, 2, 3, 2, 3, 4,
@@ -111,7 +111,7 @@ def test_t_groups_grouped_by_sample(t_groups_gfa):
     assert abaci[CountType.NODE].construct_hist().tolist() == [5, 0, 10]
     # group totals (reference: tests/info.rs:36-50): each group has
     # 50 bp / 10 nodes
-    from panacus_tpu.gfa import PathSegment
+    from panacus_jax.gfa import PathSegment
 
     lens = itemized.paths_len
     x = PathSegment.from_str("x")

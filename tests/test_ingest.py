@@ -3,21 +3,21 @@ OR-merging partial membership matrices equals the single-host build."""
 
 import numpy as np
 
-from panacus_tpu.abacus import (
+from panacus_jax.abacus import (
     AbacusByTotal,
     build_membership_host,
     path_order_groups,
 )
-from panacus_tpu.gfa import GraphStorage
-from panacus_tpu.itemize import itemize_paths
-from panacus_tpu.mask import GraphMask, GraphMaskParameters
-from panacus_tpu.ops import CountingEngine
-from panacus_tpu.parallel.ingest import (
+from panacus_jax.gfa import GraphStorage
+from panacus_jax.itemize import itemize_paths
+from panacus_jax.mask import GraphMask, GraphMaskParameters
+from panacus_jax.ops import CountingEngine
+from panacus_jax.parallel.ingest import (
     host_path_slice,
     merge_partials,
     partial_membership,
 )
-from panacus_tpu.utils import CountType
+from panacus_jax.utils import CountType
 
 from conftest import reference_file
 
@@ -95,7 +95,7 @@ def test_group_cuts_balanced_hprc_shape():
     whole-word partition: 3 words, 5 idle hosts) must give every process a
     payload share, with per-word contributor slots covering each group's
     owner exactly once."""
-    from panacus_tpu.parallel.ingest import (
+    from panacus_jax.parallel.ingest import (
         group_cuts,
         word_slots,
         words_of_range,

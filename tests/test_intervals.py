@@ -3,7 +3,7 @@
 
 import numpy as np
 
-from panacus_tpu.utils import ActiveTable, IntervalContainer, intersects, is_contained
+from panacus_jax.utils import ActiveTable, IntervalContainer, intersects, is_contained
 
 
 def test_interval_union_merging():
@@ -61,7 +61,7 @@ def test_threshold_parsing_rejects_rust_invalid_forms():
     # Rust usize/f64 from_str reject '-', '_' separators (hist.rs:207-258)
     import pytest
 
-    from panacus_tpu.utils import parse_threshold_list
+    from panacus_jax.utils import parse_threshold_list
 
     assert [t.value for t in parse_threshold_list("0,1,2", "absolute")] == [
         0.0,

@@ -3,9 +3,9 @@ packing, growth math stability at n=1000."""
 
 import numpy as np
 
-from panacus_tpu.hist import Hist
-from panacus_tpu.ops.engine import CountingEngine
-from panacus_tpu.utils import CountType, Threshold
+from panacus_jax.hist import Hist
+from panacus_jax.ops.engine import CountingEngine
+from panacus_jax.utils import CountType, Threshold
 
 
 def test_thousand_groups_coverage_and_hist():

@@ -5,11 +5,11 @@ partial-coverage bp corrections."""
 import numpy as np
 import pytest
 
-from panacus_tpu.abacus import AbacusByTotal, path_order_groups
-from panacus_tpu.gfa import GraphStorage
-from panacus_tpu.itemize import itemize_paths
-from panacus_tpu.mask import GraphMask, GraphMaskParameters
-from panacus_tpu.utils import CountType
+from panacus_jax.abacus import AbacusByTotal, path_order_groups
+from panacus_jax.gfa import GraphStorage
+from panacus_jax.itemize import itemize_paths
+from panacus_jax.mask import GraphMask, GraphMaskParameters
+from panacus_jax.utils import CountType
 
 
 def write_gfa(tmp_path, name="g.gfa"):
@@ -160,7 +160,7 @@ def test_regex_subset(capsys, tmp_path):
         "P\talpha#0#c\t1+,2+\t*\n"
         "P\tbeta#0#c\t2+,3+\t*\n"
     )
-    from panacus_tpu.cli import run_cli
+    from panacus_jax.cli import run_cli
 
     run_cli(["hist", str(gfa), "-s", "^alpha#"])
     out = capsys.readouterr().out
@@ -173,7 +173,7 @@ def test_regex_subset(capsys, tmp_path):
 def test_bed12_block_mode(tmp_path):
     from io import BytesIO
 
-    from panacus_tpu.io_utils import parse_bed_to_path_segments
+    from panacus_jax.io_utils import parse_bed_to_path_segments
 
     # blockSizes 2,3 at blockStarts 0,5 from chromStart 10 -> [10,12), [15,18)
     bed = b"p#0#c\t10\t30\tname\t0\t+\t10\t30\t0\t2\t2,3\t0,5\n"
@@ -198,7 +198,7 @@ def test_subset_by_group_name(capsys, tmp_path):
     )
     sub = tmp_path / "sub.txt"
     sub.write_text("s1\n")
-    from panacus_tpu.cli import run_cli
+    from panacus_jax.cli import run_cli
 
     run_cli(["hist", str(gfa), "-S", "-s", str(sub)])
     out = capsys.readouterr().out

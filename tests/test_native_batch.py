@@ -7,11 +7,11 @@ import contextlib
 import numpy as np
 import pytest
 
-import panacus_tpu.native as native
-from panacus_tpu.gfa import GraphStorage
-from panacus_tpu.itemize import itemize_paths
-from panacus_tpu.mask import GraphMask, GraphMaskParameters
-from panacus_tpu.utils import CountType
+import panacus_jax.native as native
+from panacus_jax.gfa import GraphStorage
+from panacus_jax.itemize import itemize_paths
+from panacus_jax.mask import GraphMask, GraphMaskParameters
+from panacus_jax.utils import CountType
 
 
 @contextlib.contextmanager

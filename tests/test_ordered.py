@@ -5,8 +5,8 @@ import math
 
 import numpy as np
 
-from panacus_tpu.ops.engine import CountingEngine
-from panacus_tpu.utils import Threshold
+from panacus_jax.ops.engine import CountingEngine
+from panacus_jax.utils import Threshold
 
 
 def reference_ordered_growth(memberships, n_groups, weights, c_abs, q_rel):
@@ -86,7 +86,7 @@ def test_order_with_fragmented_groups_rejected(tmp_path):
     # "fragmented groups" check, src/graph_broker/abacus.rs:116-127)
     import pytest
 
-    from panacus_tpu.cli import run_cli
+    from panacus_jax.cli import run_cli
 
     gfa = tmp_path / "f.gfa"
     gfa.write_text(

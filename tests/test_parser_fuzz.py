@@ -16,13 +16,13 @@ fallback (each binding re-resolves get_lib per call).
 import numpy as np
 import pytest
 
-from panacus_tpu import native
-from panacus_tpu.abacus import construct_hists
-from panacus_tpu.gfa import GraphStorage
-from panacus_tpu.itemize import itemize_paths
-from panacus_tpu.mask import GraphMask, GraphMaskParameters
-from panacus_tpu.stream import streamed_total_abaci
-from panacus_tpu.utils import CountType
+from panacus_jax import native
+from panacus_jax.abacus import construct_hists
+from panacus_jax.gfa import GraphStorage
+from panacus_jax.itemize import itemize_paths
+from panacus_jax.mask import GraphMask, GraphMaskParameters
+from panacus_jax.stream import streamed_total_abaci
+from panacus_jax.utils import CountType
 
 CTS = [CountType.NODE, CountType.BP, CountType.EDGE]
 
@@ -92,7 +92,7 @@ def _random_gfa(tmp_path, rng, int_names: bool, with_walks: bool):
 def _hists_classic(gfa):
     g = GraphStorage(gfa, index_edges=True)
     mask = GraphMask.from_datamgr(GraphMaskParameters(groupby_sample=True), g)
-    from panacus_tpu.abacus import AbacusByTotal, path_order_groups
+    from panacus_jax.abacus import AbacusByTotal, path_order_groups
 
     itemized = itemize_paths(g, mask, CTS)
     path_order, groups = path_order_groups(mask, g.path_segments)

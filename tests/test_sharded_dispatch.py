@@ -12,7 +12,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from panacus_tpu.ops import engine as eng
+from panacus_jax.ops import engine as eng
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 2, reason="needs a multi-device mesh"

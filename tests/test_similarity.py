@@ -3,7 +3,7 @@
 
 import numpy as np
 
-from panacus_tpu.ops.engine import CountingEngine
+from panacus_jax.ops.engine import CountingEngine
 
 
 def oracle_similarity(memberships, n_groups, weights):
@@ -42,7 +42,7 @@ def test_similarity_random():
 
 
 def test_jaccard_and_cluster_order():
-    from panacus_tpu.analyses.similarity import _cluster_order
+    from panacus_jax.analyses.similarity import _cluster_order
 
     table = np.array(
         [

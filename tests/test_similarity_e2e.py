@@ -1,7 +1,7 @@
 """End-to-end similarity parity: CLI matrix vs an independent oracle.
 
 The oracle re-derives weighted Jaccard directly from the GFA text with a
-throwaway parser (no panacus_tpu code on the oracle side), matching the
+throwaway parser (no panacus_jax code on the oracle side), matching the
 reference's accumulation semantics (src/analyses/similarity.rs:119-163):
 per group, distinct items; intersections weighted by node length for bp,
 by 1 for node.
@@ -9,7 +9,7 @@ by 1 for node.
 
 import numpy as np
 
-from panacus_tpu.cli import run_cli
+from panacus_jax.cli import run_cli
 
 
 def run(capsys, args):

@@ -1,4 +1,4 @@
-"""Streamed membership build (panacus_tpu/stream.py) must be semantically
+"""Streamed membership build (panacus_jax/stream.py) must be semantically
 identical to the classic itemize -> build -> upload path on unmasked runs:
 same hists, same ordered growth, same similarity, same paths_len, same
 per-path slices. Runs on the 8-device virtual mesh (conftest), so the
@@ -9,14 +9,14 @@ import os
 import numpy as np
 import pytest
 
-from panacus_tpu.abacus import AbacusByTotal, path_order_groups
-from panacus_tpu.broker import GraphBroker, GraphState, Req
-from panacus_tpu.config import Grouping
-from panacus_tpu.gfa import GraphStorage
-from panacus_tpu.itemize import itemize_paths
-from panacus_tpu.mask import GraphMask, GraphMaskParameters
-from panacus_tpu.stream import streamed_total_abaci
-from panacus_tpu.utils import CountType
+from panacus_jax.abacus import AbacusByTotal, path_order_groups
+from panacus_jax.broker import GraphBroker, GraphState, Req
+from panacus_jax.config import Grouping
+from panacus_jax.gfa import GraphStorage
+from panacus_jax.itemize import itemize_paths
+from panacus_jax.mask import GraphMask, GraphMaskParameters
+from panacus_jax.stream import streamed_total_abaci
+from panacus_jax.utils import CountType
 
 
 def classic_abaci(graph, mask, count_types):
@@ -79,7 +79,7 @@ def test_stream_not_applicable_with_masks(chrm_gfa, tmp_path):
 
 
 def test_stream_env_kill_switch(chrm_gfa, monkeypatch):
-    monkeypatch.setenv("PANACUS_TPU_NO_STREAM", "1")
+    monkeypatch.setenv("PANACUS_NO_STREAM", "1")
     g = GraphStorage(chrm_gfa, index_edges=False)
     mask = GraphMask.from_datamgr(GraphMaskParameters(groupby_sample=True), g)
     assert streamed_total_abaci(g, mask, [CountType.NODE]) is None
@@ -99,7 +99,7 @@ def test_broker_group_abacus_shares_engine(chrm_gfa):
     assert gb.group_abacus is not None
     assert gb.group_abacus.engine is gb.total_abaci[CountType.NODE].engine
     # ordered growth through the shared engine still works
-    from panacus_tpu.utils import Threshold
+    from panacus_jax.utils import Threshold
 
     res = gb.group_abacus.calc_growth(Threshold.absolute(1), Threshold.rel(0.0))
     assert len(res) == len(gb.group_abacus.groups)
@@ -131,12 +131,12 @@ def test_serial_schedule_matches_sharded(chrm_gfa, monkeypatch):
     phase B edge after joining the async edge index) must produce the
     same hists as the default sharded build. CI runs on the 8-device
     mesh where the serial path is never chosen, so force it."""
-    from panacus_tpu.ops import engine as eng
+    from panacus_jax.ops import engine as eng
 
     cts = [CountType.NODE, CountType.BP, CountType.EDGE]
 
     def hists_of(res):
-        from panacus_tpu.abacus import construct_hists
+        from panacus_jax.abacus import construct_hists
 
         return {
             ct: [int(x) for x in h]
@@ -168,13 +168,13 @@ def test_pipelined_schedule_matches_serial(chrm_gfa, monkeypatch):
     """Force the pipelined (device-upload) schedule on one device by
     pretending the rows are not host-placed; results must match the
     serial schedule bit-for-bit."""
-    from panacus_tpu.ops import engine as eng
+    from panacus_jax.ops import engine as eng
 
     cts = [CountType.NODE, CountType.BP, CountType.EDGE]
     monkeypatch.setattr(eng, "_items_sharding", lambda: None)
 
     def hists_of(res):
-        from panacus_tpu.abacus import construct_hists
+        from panacus_jax.abacus import construct_hists
 
         return {
             ct: [int(x) for x in h]
@@ -193,7 +193,9 @@ def test_pipelined_schedule_matches_serial(chrm_gfa, monkeypatch):
         self._host_np = False
 
     monkeypatch.setattr(eng.MembershipStream, "__init__", no_host_init)
-    monkeypatch.setattr(eng, "host_row_placement", lambda *a: False)
+    from panacus_jax import stream as stream_mod
+
+    monkeypatch.setattr(stream_mod, "rows_on_host", lambda: False)
     g2 = GraphStorage(chrm_gfa, index_edges=True)
     mask2 = GraphMask.from_datamgr(
         GraphMaskParameters(groupby_sample=True), g2
@@ -208,7 +210,7 @@ def test_serial_edge_only(chrm_gfa, monkeypatch):
     """Edge-only runs in the serial schedule: phase A only tokenizes and
     stashes (no node stream exists), phase B builds the edge rows. Must
     match the classic itemizer's edge abacus."""
-    from panacus_tpu.ops import engine as eng
+    from panacus_jax.ops import engine as eng
 
     monkeypatch.setattr(eng, "_items_sharding", lambda: None)
     cts = [CountType.EDGE]

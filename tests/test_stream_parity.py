@@ -15,11 +15,11 @@ import os
 import numpy as np
 import pytest
 
-from panacus_tpu.gfa import GraphStorage
-from panacus_tpu.itemize import itemize_paths
-from panacus_tpu.mask import GraphMask, GraphMaskParameters
-from panacus_tpu.stream import streamed_total_abaci
-from panacus_tpu.utils import CountType
+from panacus_jax.gfa import GraphStorage
+from panacus_jax.itemize import itemize_paths
+from panacus_jax.mask import GraphMask, GraphMaskParameters
+from panacus_jax.stream import streamed_total_abaci
+from panacus_jax.utils import CountType
 
 
 def _walk_heavy_gfa(tmp_path, n_nodes=400, n_samples=6):

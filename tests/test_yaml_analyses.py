@@ -2,7 +2,7 @@
 
 import json
 
-from panacus_tpu.cli import run_cli
+from panacus_jax.cli import run_cli
 
 
 def test_coverage_line_yaml(capsys, t_groups_gfa, tmp_path):
